@@ -1,4 +1,4 @@
-// ocs2rt: native real-time runtime for the TPU-native OCS2 re-design.
+// ocs2rt: native real-time runtime for the JAX-native OCS2 re-design.
 //
 // Re-implements, for the host side of the MPC<->MRT split, what the reference
 // does with its C++ thread-support layer and ROS transport:
@@ -12,7 +12,8 @@
 //   * RT thread priority (reference SetThreadPriority.h);
 //   * monotonic timing for benchmark timers (reference Benchmark.h:42).
 //
-// The TPU does the math; this layer keeps the 400 Hz control side honest.
+// The accelerator does the math; this layer keeps the 400 Hz control side
+// honest.
 // Exposed as a plain C ABI consumed from Python via ctypes
 // (ocs2_tpu/runtime/native.py).
 

@@ -1,6 +1,6 @@
 """Policy representations.
 
-TPU-native analogue of the reference controller classes
+JAX-native analogue of the reference controller classes
 (ocs2_core/include/ocs2_core/control/LinearController.h:42,
 FeedforwardController.h:44).  Controllers are pytrees of dense time-stamped
 arrays evaluated by interpolation — directly usable inside jitted rollouts and

@@ -1,6 +1,6 @@
 """Fixed-step ODE integration and sensitivity discretization.
 
-TPU-native analogue of the reference's integrator family
+JAX-native analogue of the reference's integrator family
 (ocs2_core/include/ocs2_core/integration/Integrator.h:43-52) and its
 SensitivityIntegrator (integration/SensitivityIntegrator.h:64-88).
 

@@ -1,6 +1,6 @@
 """Linear interpolation over time-stamped trajectories.
 
-TPU-native analogue of the reference's LinearInterpolation
+JAX-native analogue of the reference's LinearInterpolation
 (ocs2_core/include/ocs2_core/misc/LinearInterpolation.h) and Lookup
 (misc/Lookup.h).  Implemented with ``jnp.searchsorted`` + gather so it is
 jittable, vmappable, and free of data-dependent control flow.

@@ -1,6 +1,6 @@
 """Scalar penalty functions for soft constraints and augmented Lagrangians.
 
-TPU-native re-expression of the reference's penalty family (reference:
+JAX-native re-expression of the reference's penalty family (reference:
 ocs2_core/include/ocs2_core/penalties/penalties/*.h).  Each penalty is a pure
 function h -> (value, dh, ddh) evaluated elementwise on constraint values; the
 solver folds them into the cost quadratic via the chain rule.  All functions

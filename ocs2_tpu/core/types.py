@@ -1,6 +1,6 @@
 """Core value types: Taylor-approximation containers and performance indices.
 
-TPU-native re-expression of the reference's universal currency types
+JAX-native re-expression of the reference's universal currency types
 (reference: ocs2_core/include/ocs2_core/Types.h:44-341).  Where the reference
 uses dynamically sized Eigen matrices held in per-node ``std::vector``s, we use
 JAX pytrees of dense arrays with an optional leading time/batch axis — the
@@ -102,7 +102,7 @@ class PerformanceIndex(NamedTuple):
 def make_psd(mat: Array, min_eigenvalue: float = 0.0) -> Array:
     """Shift the symmetric part of ``mat`` to have eigenvalues >= min_eigenvalue.
 
-    TPU-friendly analogue of LinearAlgebra::makePsdEigenvalue (reference
+    Analogue of LinearAlgebra::makePsdEigenvalue (reference
     ocs2_core/misc/LinearAlgebra.h): symmetric eigendecomposition with clamped
     eigenvalues.  Batched via vmap by callers.
     """

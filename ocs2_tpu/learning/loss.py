@@ -1,6 +1,6 @@
 """MPC-Net losses.
 
-TPU-native analogues of the reference losses (ocs2_mpcnet_core/python/
+JAX-native analogues of the reference losses (ocs2_mpcnet_core/python/
 ocs2_mpcnet_core/loss/hamiltonian.py, behavioral_cloning.py,
 cross_entropy.py).  The Hamiltonian loss consumes the per-node quadratic
 approximation of the control Hamiltonian that the solver computes anyway —

@@ -1,6 +1,6 @@
 """Circular replay memory as a fixed-size device-resident pytree.
 
-TPU-native analogue of the reference's CircularMemory
+JAX-native analogue of the reference's CircularMemory
 (ocs2_mpcnet_core/python/ocs2_mpcnet_core/memory/circular.py).  Instead of a
 Python list of torch tensors, the buffer is one preallocated pytree of
 [capacity, ...] arrays updated with dynamic_update_slice — push and sample

@@ -1,6 +1,6 @@
 """MPC-Net: policy learning by imitating the MPC through its Hamiltonian.
 
-TPU-native re-design of the reference MPC-Net pipeline (ocs2_mpcnet):
+JAX-native re-design of the reference MPC-Net pipeline (ocs2_mpcnet):
 * MpcnetRolloutManager's nDataGen/nPolicyEval worker threads, each owning an
   MPC + ONNX policy (rollout/MpcnetRolloutManager.h:43-133)  ->  ONE vmapped
   closed-loop scan: scenarios are a batch axis, the MPC solve *is* the

@@ -1,6 +1,6 @@
 """MPC-Net policy architectures.
 
-TPU-native re-design of the reference MPC-Net policies
+JAX-native re-design of the reference MPC-Net policies
 (ocs2_mpcnet/ocs2_mpcnet_core/python/ocs2_mpcnet_core/policy/linear.py,
 nonlinear.py, mixture_of_linear_experts.py, mixture_of_nonlinear_experts.py)
 as flax modules.  The reference wraps PyTorch modules and deploys them via

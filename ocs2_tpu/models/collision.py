@@ -1,13 +1,14 @@
 """Self-collision avoidance via sphere approximation.
 
-TPU-native re-design of the reference's collision stack: the sphere
+JAX-native re-design of the reference's collision stack: the sphere
 decomposition of link geometry (ocs2_pinocchio/ocs2_sphere_approximation/
 PinocchioSphereInterface.h, SphereApproximation.h, PinocchioSphereKinematics.h)
 and the distance-based self-collision constraint (ocs2_self_collision/
 SelfCollision.h, SelfCollisionConstraint.h:44).  The reference's hpp-fcl
-mesh-distance path has no TPU analogue by design — sphere sets are the
-batched, differentiable representation that maps onto the VPU: all pairwise
-distances are one [P] gather + norm, vmapped over horizon nodes.
+mesh-distance path has no analogue here by design — sphere sets are the
+batched, differentiable representation that maps onto vectorized device
+code: all pairwise distances are one [P] gather + norm, vmapped over
+horizon nodes.
 
 A ``SphereModel`` attaches spheres to kinematic frames; given batched frame
 poses the pairwise signed distances are
@@ -57,8 +58,8 @@ class SphereModel(NamedTuple):
                 for b in ib:
                     pairs.append((a, b))
         # NUMPY leaves: SphereModels live at module level and are captured
-        # by jitted constraint closures — committed device arrays there cost
-        # a fixed ~25 ms host sync per call on remote TPU backends.
+        # by jitted constraint closures; numpy constants bake into the
+        # compiled program as literals.
         return SphereModel(
             frame_idx=frame_idx,
             offsets=offsets,

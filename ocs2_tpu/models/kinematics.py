@@ -1,6 +1,6 @@
 """Differentiable rigid-body kinematics: serial chains and trees in JAX.
 
-TPU-native replacement for the reference's Pinocchio layer
+JAX-native replacement for the reference's Pinocchio layer
 (ocs2_pinocchio/ocs2_pinocchio_interface/PinocchioInterface.h:60,
 PinocchioEndEffectorKinematics.h) for the kinematic queries the MPC stack
 needs: forward kinematics of end-effector frames and their Jacobians.  A

@@ -1,7 +1,7 @@
 """Soft-contact quadruped plant: spring-damper ground + Coulomb friction +
 joint-servo force transmission.
 
-The TPU-native analogue of the reference's RaiSim rollout backend
+The JAX-native analogue of the reference's RaiSim rollout backend
 (ocs2_raisim/ocs2_raisim_core/include/ocs2_raisim_core/RaisimRollout.h:46-165):
 a CONTACT-physics plant behind the MRT rollout seam whose ground reactions
 come from foot penetration and slip, not from the MPC's commanded input.

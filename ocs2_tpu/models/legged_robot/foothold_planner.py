@@ -1,6 +1,6 @@
 """Foothold planning on segmented-planes terrain + terrain-adaptive swing.
 
-TPU-native analogue of the reference SwingTrajectoryPlanner pipeline
+JAX-native analogue of the reference SwingTrajectoryPlanner pipeline
 (ocs2_switched_model_interface/foot_planner/SwingTrajectoryPlanner.h:
 selectHeuristicFootholds -> selectNominalFootholdTerrain -> per-phase
 StancePhase / SwingPhase references, FootPhase.h) and the constraints it

@@ -2,7 +2,7 @@
 elevation map, foothold-to-segment projection, and the tangential/normal
 foothold constraints.
 
-TPU-native re-design of the reference perceptive-anymal production terrain
+JAX-native re-design of the reference perceptive-anymal production terrain
 pipeline:
 * plane decomposition + per-segment planes:
   segmented_planes_terrain_model/SegmentedPlanesTerrainModel.h:15 (consumes
@@ -20,8 +20,7 @@ host once per elevation-map update (the reference runs an external CPU
 library for this), producing FIXED-SHAPE arrays — K segments with padded
 V-vertex convex boundaries.  All QUERIES (closest segment, polygon
 projection, signed tangential distance) are jittable gather + small dense
-math over those arrays: vmappable over feet x nodes x scenarios, ideal TPU
-access patterns.  Padding is inert: invalid segments carry +inf distance,
+math over those arrays: vmappable over feet x nodes x scenarios.  Padding is inert: invalid segments carry +inf distance,
 padded vertices repeat the last real vertex (zero-length edges contribute
 no new candidates).
 """

@@ -1,6 +1,6 @@
 """Perceptive locomotion: terrain models and terrain-aware foot constraints.
 
-TPU-native re-design of the reference perceptive-anymal terrain stack
+JAX-native re-design of the reference perceptive-anymal terrain stack
 (ocs2_robotic_examples/ocs2_perceptive_anymal/ocs2_switched_model_interface/
 include/ocs2_switched_model_interface/terrain/TerrainModel.h — TerrainPlane,
 getLocalTerrainAtPositionInWorldAlongGravity, getSignedDistanceField — and
@@ -12,7 +12,7 @@ elevation-mapping pipeline produces).  Local terrain planes come from a
 least-squares plane fit over a fixed window around the query — the
 plane-segmentation analogue, but computed as a closed-form 3x3 solve per
 query, jittable and vmappable over feet x nodes x scenarios.  All queries
-are gathers + small dense math: ideal TPU access patterns.
+are gathers + small dense math.
 
 The constraint set it feeds (stance-on-terrain, terrain-normal friction
 cone, swing clearance over terrain) mirrors the reference's foot placement

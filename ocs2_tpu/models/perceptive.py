@@ -1,6 +1,6 @@
 """Perceptive constraints: signed-distance fields and terrain grids.
 
-TPU-native re-design of ocs2_perceptive: `DistanceTransformInterface` /
+JAX-native re-design of ocs2_perceptive: `DistanceTransformInterface` /
 `ComputeDistanceTransform` (distance_transform/*.h), the bilinear/trilinear
 grid interpolation (interpolation/*.h), and the end-effector distance
 constraints (end_effector/EndEffectorDistanceConstraint*.h); plus the planar
@@ -8,8 +8,7 @@ signed-distance field used by perceptive locomotion
 (ocs2_robotic_examples/ocs2_perceptive_anymal/.../PlanarSignedDistanceField).
 
 An SDF is a dense grid + origin + resolution; queries are trilinear gathers
-— exactly the memory-access pattern TPUs like (small gathers batched over
-horizon nodes / end effectors / scenarios).  The distance transform is
+(small gathers batched over horizon nodes / end effectors / scenarios).  The distance transform is
 computed with the classic two-pass chamfer sweep expressed as `lax.scan`
 over grid slabs (jittable, O(N) — replaces the reference's CPU kd-sweep).
 """
@@ -101,8 +100,8 @@ def _edt_1d_sq(f_sq: Array) -> Array:
     """Exact 1-D squared Euclidean distance transform along axis 0:
     out[p] = min_q ((p-q)^2 + f_sq[q])  (Felzenszwalb & Huttenlocher's
     separable formulation).  Expressed as a dense min-plus reduction —
-    O(L^2) per line but fully vectorized (VPU-friendly broadcast + min),
-    no data-dependent control flow."""
+    O(L^2) per line but fully vectorized (broadcast + min), no
+    data-dependent control flow."""
     length = f_sq.shape[0]
     i = jnp.arange(length, dtype=f_sq.dtype)
     d2 = jnp.square(i[:, None] - i[None, :])  # [L, L]

@@ -1,6 +1,6 @@
 """URDF front-end: parse a URDF into kinematic chains for the JAX layer.
 
-TPU-native analogue of the reference's URDF front door
+JAX-native analogue of the reference's URDF front door
 (ocs2_pinocchio/ocs2_pinocchio_interface/include/ocs2_pinocchio_interface/
 urdf.h — `getPinocchioInterfaceFromUrdfFile`), used by every example
 interface (e.g. ocs2_mobile_manipulator/src/MobileManipulatorInterface.cpp

@@ -1,6 +1,6 @@
 """Receding-horizon MPC runtime.
 
-TPU-native re-design of the reference MPC layer (ocs2_mpc/MPC_BASE.h:44-100,
+JAX-native re-design of the reference MPC layer (ocs2_mpc/MPC_BASE.h:44-100,
 MPC_BASE.cpp:53-91 and the solver adapters GaussNewtonDDP_MPC.h:43 /
 SqpMpc.h:38).  Architecture:
 

@@ -1,6 +1,6 @@
 """MRT — model reference tracking (the consumer side of the MPC split).
 
-TPU-native analogue of the reference MRT layer (ocs2_mpc/MRT_BASE.h:58-180:
+JAX-native analogue of the reference MRT layer (ocs2_mpc/MRT_BASE.h:58-180:
 updatePolicy/evaluatePolicy/rolloutPolicy double-buffered policy manager,
 MPC_MRT_Interface.h:50 in-process pairing, and the closed-loop simulator
 MRT_ROS_Dummy_Loop, ros_interfaces/src/mrt/MRT_ROS_Dummy_Loop.cpp:58-180).

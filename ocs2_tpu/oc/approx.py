@@ -1,6 +1,6 @@
 """Linear-quadratic approximation of the optimal-control problem.
 
-TPU-native analogue of the reference's LinearQuadraticApproximator
+JAX-native analogue of the reference's LinearQuadraticApproximator
 (ocs2_oc/include/ocs2_oc/approximate_model/LinearQuadraticApproximator.h:51:
 approximateIntermediateLQ / approximatePreJumpLQ / approximateFinalLQ) and the
 multiple-shooting transcription (ocs2_oc/multiple_shooting/Transcription.h:44).
@@ -8,7 +8,7 @@ multiple-shooting transcription (ocs2_oc/multiple_shooting/Transcription.h:44).
 Where the reference fans per-node work out over a ThreadPool
 (GaussNewtonDDP.cpp:669, SqpSolver.cpp:358), we ``vmap`` one fused node
 evaluation over the whole horizon: every Jacobian/Hessian of every node is one
-batched XLA computation that tiles onto the MXU.  CppAD code generation
+batched XLA computation.  CppAD code generation
 (ocs2_core/automatic_differentiation/CppAdInterface.h:48) is replaced by
 ``jax.jacfwd``/``jax.hessian`` under jit.
 """
@@ -137,8 +137,8 @@ def quadratize_running_cost(problem, t, dt, x, u, p, jump_mask):
     penalty terms) are summed analytically; only the remaining plain
     callables go through generic forward-over-reverse AD.  Mirrors the
     reference's per-term LQ assembly (LinearQuadraticApproximator.h:51 sums
-    term approximations), which is Gauss-Newton — and on TPU avoids paying
-    ~nz HVPs through kinematics-heavy terms.
+    term approximations), which is Gauss-Newton — and avoids paying ~nz
+    HVPs through kinematics-heavy terms.
     """
     nu = u.shape[0]
     s_xu, p_xu = _split_terms(problem.cost_terms)

@@ -1,6 +1,6 @@
 """State-triggered rollout: guard-surface event detection during simulation.
 
-TPU-native re-design of the reference's StateTriggeredRollout
+JAX-native re-design of the reference's StateTriggeredRollout
 (ocs2_oc/include/ocs2_oc/rollout/StateTriggeredRollout.h:46-78) and its
 RootFinder (rollout/RootFinder.h), plus the hybrid-system hooks of
 SystemDynamicsBase (guard surfaces, jump maps;

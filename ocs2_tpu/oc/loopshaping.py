@@ -1,6 +1,6 @@
 """Loopshaping: frequency-domain cost shaping via input-filter augmentation.
 
-TPU-native re-design of the reference loopshaping machinery
+JAX-native re-design of the reference loopshaping machinery
 (ocs2_core/include/ocs2_core/loopshaping/: LoopshapingDefinition.h:44-49 with
 its two patterns, the dynamics wrapper loopshaping/dynamics/
 LoopshapingDynamics.h, and the cost/constraint/soft-constraint wrappers under

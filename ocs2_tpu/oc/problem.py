@@ -1,6 +1,6 @@
 """Optimal-control problem definition as a pytree of pure functions.
 
-TPU-native re-expression of the reference's OptimalControlProblem
+JAX-native re-expression of the reference's OptimalControlProblem
 (ocs2_oc/include/ocs2_oc/oc_problem/OptimalControlProblem.h:48-138).  The
 reference holds ~20 term-collection slots of virtual-dispatch objects; here a
 problem is a frozen dataclass of jittable callables over dense arrays.  The
@@ -161,8 +161,8 @@ class OptimalControlProblem:
 # and only runs generic forward-over-reverse AD on the remaining plain
 # callables.  This is the reference's Gauss-Newton structure — analytic
 # Hessians for quadratic costs (QuadraticStateInputCost.h) and
-# penalty''·J'J for soft constraints — and on TPU it removes the dominant
-# cost of the whole solve (full Hessians of kinematics-heavy terms).
+# penalty''·J'J for soft constraints — and it avoids full Hessians of
+# kinematics-heavy terms, the most expensive AD in the approximation.
 # --------------------------------------------------------------------------
 
 
@@ -177,9 +177,8 @@ class QuadraticTrackingCost:
     psd_quadratization = True  # Q, R assumed PSD
 
     def __init__(self, Q, R, target_key: str = "target"):
-        # Stored as NUMPY constants: committed device arrays captured inside
-        # a jitted solve cost a fixed ~25 ms host sync PER CALL on remote
-        # TPU backends; numpy constants bake into the program as literals.
+        # Stored as NUMPY constants: they bake into the compiled program as
+        # literals, and building the cost starts no device work.
         self.Q = np.asarray(Q, np.float32)
         self.R = np.asarray(R, np.float32)
         self.target_key = target_key

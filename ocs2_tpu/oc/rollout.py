@@ -1,6 +1,6 @@
 """Forward rollout of the (possibly switched) system dynamics.
 
-TPU-native analogue of the reference rollout machinery
+JAX-native analogue of the reference rollout machinery
 (ocs2_oc/include/ocs2_oc/rollout/RolloutBase.h:46-130,
 TimeTriggeredRollout.h:46).  One ``lax.scan`` over the horizon replaces the
 per-segment ODE integration loop; jump transitions are masked blends on the

@@ -1,6 +1,6 @@
 """Trajectory spreading: mode-consistent warm-start remapping.
 
-TPU-native analogue of the reference's TrajectorySpreading
+JAX-native analogue of the reference's TrajectorySpreading
 (ocs2_oc/include/ocs2_oc/trajectory_adjustment/TrajectorySpreading.h:37-90:
 ``set`` matches the old and new mode schedules, ``adjustTrajectory`` warps
 the stored trajectories onto the new event times; helpers

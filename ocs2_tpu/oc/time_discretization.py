@@ -1,6 +1,6 @@
 """Horizon time grid with event alignment — static node count.
 
-TPU-native analogue of the reference's TimeDiscretization
+JAX-native analogue of the reference's TimeDiscretization
 (ocs2_oc/include/ocs2_oc/oc_data/TimeDiscretization.h:40-104,
 ``timeDiscretizationWithEvents`` :75, ``AnnotatedTime{None,PreEvent,PostEvent}``).
 
@@ -115,9 +115,8 @@ def make_time_grid(
         modes = mode_sequence[np.minimum(jump_count, len(mode_sequence) - 1)]
 
     # NUMPY leaves: a TimeGrid is host-built per solve and routinely captured
-    # by user jit closures — committed device arrays there cost a fixed
-    # ~25 ms host sync per call on remote TPU backends, numpy bakes into the
-    # compiled program as literals (and works identically as a jit argument).
+    # by user jit closures; numpy bakes into the compiled program as
+    # literals (and works identically as a jit argument).
     return TimeGrid(
         times=times,
         is_jump=is_jump,

@@ -1,6 +1,6 @@
 """Continuous-time algebraic Riccati equation / infinite-horizon LQR.
 
-TPU-native analogue of the reference's ContinuousTimeLqr utility
+JAX-native analogue of the reference's ContinuousTimeLqr utility
 (ocs2_ddp/include/ocs2_ddp/ContinuousTimeLqr.h: computes the CARE solution
 and the LQR gain for a linearized system).  The reference calls into a
 Schur-decomposition CARE; Schur is not jittable, so we use the matrix

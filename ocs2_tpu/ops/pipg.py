@@ -1,6 +1,6 @@
 """PIPG: proportional-integral projected gradient OCP-QP solver.
 
-TPU-native re-design of the reference's first-order QP solver
+JAX-native re-design of the reference's first-order QP solver
 (ocs2_slp/include/ocs2_slp/pipg/PipgSolver.h:30-60, parallel update task
 src/pipg/PipgSolver.cpp:49-231, single-thread reference pipg/SingleThreadPipg.h;
 algorithm: Yu, Elango, Acikmese, "Proportional-Integral Projected Gradient
@@ -8,8 +8,8 @@ Method for Conic Optimization", arXiv:2009.06980).
 
 The reference fans per-node primal/dual updates over a ThreadPool with
 per-thread workload counters; here every update is a vmapped stage map — the
-whole iteration is a handful of batched matmuls and elementwise ops on the
-VPU/MXU, with *no* sequential dependency over the horizon (unlike Riccati).
+whole iteration is a handful of batched matmuls and elementwise ops, with
+*no* sequential dependency over the horizon (unlike Riccati).
 That makes PIPG the preferred kernel when the horizon is sharded across
 devices: the only cross-node coupling is the one-step neighbor exchange in
 G z and G' eta, which XLA lowers to cheap shifts (ppermute on a sharded

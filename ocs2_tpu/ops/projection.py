@@ -1,6 +1,6 @@
 """QR-based null-space projection of state-input equality constraints.
 
-TPU-native analogue of the reference's constraint projection
+JAX-native analogue of the reference's constraint projection
 (ocs2_oc/multiple_shooting/Transcription.h:87 ``projectTranscription``,
 ocs2_core/misc/LinearAlgebra.h rank-revealing QR projection, and the remap
 helpers multiple_shooting/Helpers.h ``remapProjectedInput/remapProjectedGain``).

@@ -1,6 +1,6 @@
 """Continuous-time Riccati ODE backward pass — the SLQ backward sweep.
 
-TPU-native analogue of the reference's continuous-time SLQ machinery
+JAX-native analogue of the reference's continuous-time SLQ machinery
 (ocs2_ddp/include/ocs2_ddp/SLQ.h:43, riccati_equations/
 ContinuousTimeRiccatiEquations.h:106): instead of the discrete recursion,
 the value-function coefficients (S, s) solve the Riccati ODE

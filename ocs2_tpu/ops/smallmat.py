@@ -1,12 +1,11 @@
 """Small-matrix linear algebra unrolled into plain XLA ops.
 
-XLA lowers `cholesky`/`triangular_solve` to custom-calls that are tuned for
-large matrices; on TPU a batched [4096, 3, 3] Cholesky custom-call costs
-~1.3 ms — 35% of an entire batched DDP solve (measured via the device
-profiler on the ballbot bench).  For the tiny per-stage systems of optimal
-control (nu, nx <= ~16) an UNROLLED factorization in ordinary
-multiply/add/sqrt ops fuses into the surrounding computation and runs at
-VPU speed with no dispatch at all.
+XLA lowers `cholesky`/`triangular_solve` to library calls that are tuned for
+large matrices.  For the tiny per-stage systems of optimal control (nu, nx
+<= ~16) an UNROLLED factorization in ordinary multiply/add/sqrt ops fuses
+into the surrounding computation instead of being a separate call.  Whether
+that wins on a GPU, against the library batched Cholesky, is not measured
+yet.
 
 Used by the Riccati kernels (ops/riccati.py) — the analogue of the
 reference's Eigen LLT solves inside the DDP/HPIPM backward passes
@@ -19,7 +18,7 @@ import jax.numpy as jnp
 
 Array = jax.Array
 
-# Above this size the custom-call wins (and unrolling bloats the program).
+# Above this size the library call is used (unrolling bloats the program).
 UNROLL_LIMIT = 16
 
 

@@ -2,10 +2,11 @@
 
 The reference's only horizon-parallel QP solver is PIPG fanned over a
 ThreadPool (ocs2_slp/src/pipg/PipgSolver.cpp:49-231); its per-stage updates
-couple only through the one-step neighbor terms in G z and G' eta.  On TPU
-that coupling is exactly a halo exchange: shard the stage axis over a mesh
-axis ("time"), run the per-stage updates locally, and move the two boundary
-vectors per iteration with `jax.lax.ppermute` over ICI.
+couple only through the one-step neighbor terms in G z and G' eta.  On a
+device mesh that coupling is exactly a halo exchange: shard the stage axis
+over a mesh axis ("time"), run the per-stage updates locally, and move the
+two boundary vectors per iteration with `jax.lax.ppermute` (NVLink between
+the GPUs of one host).
 
 Decomposition (D shards, N = D*nb stages):
 * shard d owns stages k in [d*nb, (d+1)*nb) and state nodes with the same
@@ -17,7 +18,7 @@ Decomposition (D shards, N = D*nb stages):
           right neighbor's FIRST node (ppermute toward higher shard index).
 
 Cost per PIPG iteration: 3 ppermutes of [nx] vectors + 1 psum — O(nx) bytes
-over ICI vs O(nb * nx^2) local FLOPs: communication-trivial, which is why
+between devices vs O(nb * nx^2) local FLOPs: communication-trivial, which is why
 PIPG is the kernel of choice for horizon sharding (vs the Riccati recursion
 whose associative scan moves O(nx^2) conditional-value elements).
 

@@ -1,12 +1,12 @@
 """Scale-out: batched and mesh-sharded scenario solving.
 
-This is the TPU-native replacement for everything the reference does with
+This is the JAX-native replacement for everything the reference does with
 threads and processes (SURVEY.md §2.9): ThreadPool fan-out over horizon
 nodes/line-search candidates becomes vmap (solvers already do this
 internally); here the *scenario* axis — thousands of independent MPC solves
-(different initial states, targets, model parameters) — is batched per chip
-with vmap and sharded across chips/hosts with `jax.sharding` + jit, with XLA
-inserting the ICI/DCN collectives.
+(different initial states, targets, model parameters) — is batched per device
+with vmap and sharded across devices with `jax.sharding` + jit, with XLA
+inserting the collectives (NCCL between GPUs).
 
 The reference has no multi-robot/multi-scenario scaling story at all; this
 module is the framework's headline superpower (BASELINE.md: >=10k batched
@@ -29,15 +29,16 @@ def make_mesh(
 ) -> Mesh:
     """1-D device mesh over all (or given) devices for scenario parallelism.
 
-    Within a host the axis rides ICI; across hosts jax's global device list
-    extends the same axis over DCN — the sharding spec does not change.
+    The GPUs of one host are joined all to all, so one axis over all of
+    them is the natural layout; jax's global device list would extend the
+    same axis across hosts without a change to the sharding spec.
     """
     devices = list(devices) if devices is not None else jax.devices()
     return Mesh(np.asarray(devices), (axis_name,))
 
 
 def batched(solve_fn: Callable) -> Callable:
-    """vmap a single-scenario solve over leading-axis batches (per chip)."""
+    """vmap a single-scenario solve over leading-axis batches (per device)."""
     return jax.vmap(solve_fn)
 
 

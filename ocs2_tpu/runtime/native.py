@@ -3,9 +3,10 @@
 The native layer re-implements the reference's host-side runtime primitives
 (BufferedValue.h:46 / Synchronized.h:111 double buffering, ExecuteAndSleep.h
 rate loops, SetThreadPriority.h) — see native/ocs2rt.cpp.  The library is
-built by native/Makefile; this module builds it on demand when the shared
-object is missing (the same lazy-compile-and-cache pattern the reference
-uses for CppAD generated models, CppAdInterface.cpp:98-108).
+built by native/Makefile; this module runs `make -C native` before the
+first load, which rebuilds the shared object whenever the tracked source is
+newer (the lazy-compile-and-cache pattern the reference uses for CppAD
+generated models, CppAdInterface.cpp:98-108).
 """
 from __future__ import annotations
 
@@ -35,8 +36,7 @@ def load_library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH):
-            _build_library()
+        _build_library()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.ocs2rt_store_create.restype = ctypes.c_void_p
         lib.ocs2rt_store_create.argtypes = [

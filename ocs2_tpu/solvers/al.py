@@ -1,6 +1,6 @@
 """Augmented-Lagrangian constraint handling.
 
-TPU-native analogue of the reference's augmented-Lagrangian machinery
+JAX-native analogue of the reference's augmented-Lagrangian machinery
 (ocs2_core/augmented_lagrangian/*.h + penalties/augmented/*.h and the DDP
 penalty-update loop GaussNewtonDDP.cpp).  Constraints are folded into the
 cost through AL terms whose per-node multipliers live in the *parameter*

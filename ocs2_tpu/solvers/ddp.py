@@ -1,6 +1,6 @@
 """Gauss-Newton DDP (SLQ / iLQR) — single-shooting trajectory optimization.
 
-TPU-native re-design of the reference DDP engine
+JAX-native re-design of the reference DDP engine
 (ocs2_ddp/include/ocs2_ddp/GaussNewtonDDP.h:60-403, main loop
 src/GaussNewtonDDP.cpp:980-1086; SLQ.h:43; ILQR.h:43).  The mapping:
 
@@ -25,8 +25,8 @@ riccati_ct.py), versus the reference's ODE45 over the same interpolated data;
 with the reference fixtures is established in tests (EXP0/EXP1 analogues).
 
 The whole solve is a single jittable, vmappable function: batching thousands
-of scenario solves per chip is `jax.vmap(solve)` (the TPU superpower the
-reference lacks).
+of scenario solves per device is `jax.vmap(solve)` (which the reference
+lacks).
 """
 from __future__ import annotations
 

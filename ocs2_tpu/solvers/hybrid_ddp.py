@@ -1,6 +1,6 @@
 """State-triggered hybrid DDP: optimize through guard-surface mode changes.
 
-TPU-native analogue of the reference's hybrid SLQ pipeline — SLQ consuming a
+JAX-native analogue of the reference's hybrid SLQ pipeline — SLQ consuming a
 StateTriggeredRollout so the mode schedule is DETECTED from the trajectory
 rather than prescribed (ocs2_ddp/test/HybridSlqTest.cpp,
 test/bouncingmass/BouncingMassTest.cpp; machinery:

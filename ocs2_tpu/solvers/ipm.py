@@ -1,6 +1,6 @@
 """Multiple-shooting nonlinear interior-point solver.
 
-TPU-native re-design of the reference IPM solver (ocs2_ipm/include/ocs2_ipm/
+JAX-native re-design of the reference IPM solver (ocs2_ipm/include/ocs2_ipm/
 IpmSolver.h:51, main loop src/IpmSolver.cpp:203-256, slack/dual condensing
 IpmHelpers.h, slack/dual initialization IpmInitialization.h, barrier and
 fraction-to-boundary settings IpmSettings.h:42-96).
@@ -25,7 +25,7 @@ and steps are clipped by the fraction-to-boundary rule (IpmSolver.cpp:
 fractionToBoundaryStepSize) with separate primal/dual step sizes.  The
 primal step additionally passes the same filter line search as SQP, on the
 barrier merit.  All of it is one jittable fixed-shape function: vmap it to
-batch thousands of IPM solves per chip.
+batch thousands of IPM solves per device.
 
 State-only equality / final equality constraints are handled by augmented
 Lagrangian (as in solvers/sqp.py); state-only inequalities get their own

@@ -1,6 +1,6 @@
 """Dense KKT ground-truth solver for LQ optimal-control problems.
 
-TPU-native analogue of the reference's independent test solver
+Analogue of the reference's independent test solver
 `ocs2_test_tools/ocs2_qp_solver` (Ocs2QpSolver.h, QpSolver.h): assembles the
 full dense KKT system of the equality-constrained LQ problem and solves it
 directly.  Used in tests as ground truth for the scan/associative-scan Riccati
@@ -24,13 +24,14 @@ class DenseQpSolution(NamedTuple):
     cost: float
 
 
-def solve_lq_dense(coeffs: LqrCoeffs, dx0) -> DenseQpSolution:
-    """Solve min sum quadratic stage costs s.t. linear dynamics, dx_0 given.
+def _kkt_system(coeffs: LqrCoeffs):
+    """Dense KKT matrix of the LQ problem and its right-hand side for dx_0 = 0.
 
-    Decision vector z = [dx_0, du_0, dx_1, du_1, ..., dx_N].
+    Decision vector z = [dx_0, du_0, dx_1, du_1, ..., dx_N]; the first nx
+    constraint rows pin dx_0, so the right-hand side for another initial
+    state adds it at rows [nz, nz + nx).
     """
     c = LqrCoeffs(*(np.asarray(f, np.float64) for f in coeffs))
-    dx0 = np.asarray(dx0, np.float64)
     n, nx = c.b.shape
     nu = c.B.shape[-1]
     nz = (n + 1) * nx + n * nu
@@ -61,7 +62,6 @@ def solve_lq_dense(coeffs: LqrCoeffs, dx0) -> DenseQpSolution:
     e = np.zeros((nc, nz))
     d = np.zeros((nc,))
     e[0:nx, 0:nx] = np.eye(nx)
-    d[0:nx] = dx0
     for k in range(n):
         row = slice((k + 1) * nx, (k + 2) * nx)
         e[row, xi(k) : xi(k) + nx] = c.A[k]
@@ -71,10 +71,50 @@ def solve_lq_dense(coeffs: LqrCoeffs, dx0) -> DenseQpSolution:
 
     kkt = np.block([[h, e.T], [e, np.zeros((nc, nc))]])
     rhs = np.concatenate([-g, d])
-    sol = np.linalg.solve(kkt, rhs)
-    z = sol[:nz]
+    return kkt, rhs, h, g, (n, nx, nu, nz)
 
-    dxs = np.stack([z[xi(k) : xi(k) + nx] for k in range(n + 1)])
-    dus = np.stack([z[ui(k) : ui(k) + nu] for k in range(n)])
+
+def solve_lq_dense(coeffs: LqrCoeffs, dx0) -> DenseQpSolution:
+    """Solve min sum quadratic stage costs s.t. linear dynamics, dx_0 given."""
+    kkt, rhs, h, g, (n, nx, nu, nz) = _kkt_system(coeffs)
+    rhs[nz : nz + nx] = np.asarray(dx0, np.float64)
+    z = np.linalg.solve(kkt, rhs)[:nz]
+
+    step = nx + nu
+    dxs = np.stack([z[k * step : k * step + nx] for k in range(n + 1)])
+    dus = np.stack([z[k * step + nx : (k + 1) * step] for k in range(n)])
     cost = 0.5 * z @ h @ z + g @ z
     return DenseQpSolution(dxs=dxs, dus=dus, cost=float(cost))
+
+
+class DenseStartSensitivity(NamedTuple):
+    """The Riccati quantities at node 0, from the dense KKT system."""
+
+    gains: np.ndarray  # [nu, nx]  d du_0 / d dx_0
+    kff: np.ndarray  # [nu]      du_0 at dx_0 = 0
+    value_S: np.ndarray  # [nx, nx]  Hessian of the optimal cost in dx_0
+    value_s: np.ndarray  # [nx]      its gradient at dx_0 = 0
+
+
+def dense_start_sensitivity(coeffs: LqrCoeffs) -> DenseStartSensitivity:
+    """Float64 ground truth for a backward pass's gains[0], kff[0],
+    value_S[0] and value_s[0].
+
+    The KKT system is linear in dx_0, so one solve with nx + 1 right-hand
+    sides (dx_0 = 0 and the unit vectors) gives du_0 and the multipliers
+    lam_0 of the constraint dx_0 = d as affine functions of d.  With the
+    Lagrangian 1/2 z'Hz + g'z + lam'(Ez - d), the optimal cost V(d) has
+    dV/dd = -lam_0.
+    """
+    kkt, rhs, _, _, (_, nx, nu, nz) = _kkt_system(coeffs)
+    rhs_all = np.tile(rhs[:, None], (1, nx + 1))
+    rhs_all[nz : nz + nx, 1:] += np.eye(nx)
+    sol = np.linalg.solve(kkt, rhs_all)
+    du0 = sol[nx : nx + nu]
+    lam0 = sol[nz : nz + nx]
+    return DenseStartSensitivity(
+        gains=du0[:, 1:] - du0[:, :1],
+        kff=du0[:, 0],
+        value_S=-(lam0[:, 1:] - lam0[:, :1]),
+        value_s=-lam0[:, 0],
+    )

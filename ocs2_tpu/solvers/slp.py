@@ -1,6 +1,6 @@
 """Sequential linear programming solver (SLP) with the PIPG inner solver.
 
-TPU-native re-design of the reference SLP solver (ocs2_slp/include/ocs2_slp/
+JAX-native re-design of the reference SLP solver (ocs2_slp/include/ocs2_slp/
 SlpSolver.h:49, src/SlpSolver.cpp: runImpl builds the same multiple-shooting
 quadratic subproblem as SQP, Ruiz-preconditions the stacked OCP data
 (precondition/Ruzi.h via SlpSolver.cpp:253), estimates the cost-Hessian and

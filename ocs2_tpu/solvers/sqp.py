@@ -1,6 +1,6 @@
 """Multiple-shooting SQP solver.
 
-TPU-native re-design of the reference SQP solver
+JAX-native re-design of the reference SQP solver
 (ocs2_sqp/ocs2_sqp/include/ocs2_sqp/SqpSolver.h:51, main loop
 src/SqpSolver.cpp:183-274).  The mapping:
 
@@ -23,7 +23,7 @@ src/SqpSolver.cpp:183-274).  The mapping:
   lives in solvers/ipm.py.
 
 Everything is one jittable function of fixed shapes: `jax.vmap(solve)`
-batches thousands of SQP solves per chip.
+batches thousands of SQP solves per device.
 """
 from __future__ import annotations
 

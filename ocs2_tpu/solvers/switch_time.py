@@ -1,6 +1,6 @@
 """Switch-time optimization: gradients of the optimal cost w.r.t. event times.
 
-TPU-native re-design of the reference's upper-level switching-time
+JAX-native re-design of the reference's upper-level switching-time
 optimization (ocs2_ocs2: GDDP computes d(cost)/d(event times) via LQ-based
 sensitivity propagation, GDDP.h:68,167-195 and sensitivity_equations/*.h;
 ocs2_frank_wolfe/OCS2.h:30-60 runs Frank-Wolfe over the event times with

@@ -1,6 +1,6 @@
 """Config system: reference-compatible ``.info`` task files.
 
-TPU-native analogue of the reference's Boost property-tree config loading
+JAX-native analogue of the reference's Boost property-tree config loading
 (ocs2_core/include/ocs2_core/misc/LoadData.h:80-171: loadPtreeValue /
 loadCppDataType / loadEigenMatrix; per-module ``loadSettings`` in
 DDP_Settings.h, SqpSettings.h, MPC_Settings.h:81, IpmSettings.h:108,

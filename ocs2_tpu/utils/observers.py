@@ -1,6 +1,6 @@
 """Solver observability: performance-index history, term probes, benchmarks.
 
-TPU-native analogue of the reference's observability stack:
+JAX-native analogue of the reference's observability stack:
 * SolverObserver term-wise probes of constraints/Lagrangians/multipliers
   (ocs2_oc/synchronized_module/SolverObserver.h:48-152) — here callbacks
   over the *solution pytree* after each solve (everything the reference

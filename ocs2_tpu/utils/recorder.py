@@ -1,7 +1,7 @@
 """Operator surface: closed-loop trajectory recording, headless artifact
 export, and target commands.
 
-TPU-native analogue of the reference's command/visualization tooling
+JAX-native analogue of the reference's command/visualization tooling
 (ocs2_ros_interfaces/command/TargetTrajectoriesKeyboardPublisher.h,
 visualization/VisualizationHelpers.h, multiplot configs): with no ROS/RViz,
 the operator-facing products are structured dumps (.npz) and headless plot

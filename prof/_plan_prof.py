@@ -1,5 +1,4 @@
-import sys, time; sys.path.insert(0, "/root/repo")
-import os
+import os, sys, time; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=1")
 import jax
 jax.config.update("jax_platforms", "cpu")

@@ -1,7 +1,4 @@
-"""Flagship (single-scenario legged MPC) perf experiments on chip.
-
-VERDICT r4 item 2: measure parallel_riccati at N in {100, 400, 1000} and
-set a data-driven default; attack the ~100 solves/s dispatch plateau.
+"""Flagship (single-scenario legged MPC) experiments on one GPU.
 
 Measures warm receding-horizon tick chains (the bench methodology) for:
   * parallel_riccati off/on at several horizon lengths,
@@ -16,15 +13,13 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ocs2_tpu_jax_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-import jax.numpy as jnp
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
-
-def _fence(x):
-    np.asarray(jax.tree.leaves(x)[0].ravel()[:1])
+import ocs2_tpu  # noqa: E402,F401
+from ocs2_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
 
 def make_solver(num_intervals, parallel_riccati, max_iterations=10):
@@ -64,13 +59,13 @@ def make_solver(num_intervals, parallel_riccati, max_iterations=10):
 def chain_time(solve_tick, x0, us_init, params, seg=8, chains=8):
     x, us = x0, us_init
     out = solve_tick(x, us, params)
-    _fence(out)
+    jax.block_until_ready(out)
     per = []
     for _ in range(chains):
         tic = time.perf_counter()
         for _ in range(seg):
             x, us, xs = solve_tick(x, us, params)
-        _fence(xs)
+        jax.block_until_ready(xs)
         per.append((time.perf_counter() - tic) / seg)
     return float(np.mean(per[1:])), float(np.percentile(per[1:], 99))
 
@@ -108,6 +103,7 @@ def iters():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     which = sys.argv[1] if len(sys.argv) > 1 else "nsweep"
     if which == "nsweep":
         only_n = int(sys.argv[2]) if len(sys.argv) > 2 else None

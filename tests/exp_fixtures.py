@@ -4,7 +4,7 @@ Re-expressions of the reference's canonical switched-problem anchors
 (ocs2_oc/test/include/ocs2_oc/test/EXP0.h:46-176, EXP1.h:44-230; expected
 optimal costs from ocs2_ddp/test/Exp0Test.cpp:49 (9.766) and
 Exp1Test.cpp:49 (5.4399)).  Mode-switched dynamics are expressed the
-TPU-native way: stacked per-mode matrices / lax.switch indexed by the
+JAX-native way: stacked per-mode matrices / lax.switch indexed by the
 per-node mode injected through params (oc/approx.node_params), instead of
 virtual dispatch through a ReferenceManager.
 """
@@ -27,8 +27,7 @@ EXP0_X0 = jnp.array([0.0, 2.0])
 EXP0_T0, EXP0_TF = 0.0, 2.0
 EXP0_EXPECTED_COST = 9.766
 
-# numpy constants (captured device arrays cost a per-call host sync on
-# remote TPU backends; numpy bakes into the program as literals).
+# numpy constants: they bake into the compiled program as literals.
 _EXP0_A = np.stack(
     [
         np.array([[0.6, 1.2], [-0.8, 3.4]], np.float32),

@@ -83,3 +83,55 @@ def test_regularization_shrinks_step():
     soft = lqr_backward(coeffs, reg=0.0)
     hard = lqr_backward(coeffs, reg=1e3)
     assert float(jnp.linalg.norm(hard.kff)) < float(jnp.linalg.norm(soft.kff))
+
+
+class TestDenseStartSensitivity:
+    """solvers/qp.py dense_start_sensitivity: the float64 ground truth that
+    chip_smoke.py holds every batched Riccati path to."""
+
+    @pytest.mark.parametrize("nx,nu,reg", [(4, 2, 0.0), (6, 3, 0.5)])
+    def test_matches_riccati_node_zero(self, nx, nu, reg):
+        from ocs2_tpu.solvers.qp import dense_start_sensitivity
+
+        coeffs = random_lq_coeffs(jax.random.PRNGKey(nx), 7, nx=nx, nu=nu)
+        sol = lqr_backward(coeffs, reg)
+        shifted = coeffs._replace(Quu=coeffs.Quu + reg * jnp.eye(nu))
+        dense = dense_start_sensitivity(shifted)
+        for f in dense._fields:
+            np.testing.assert_allclose(
+                np.asarray(getattr(sol, f)[0]), getattr(dense, f),
+                rtol=1e-4, atol=1e-5, err_msg=f,
+            )
+
+
+@pytest.mark.parametrize(
+    "path", ["batch_minor", "vmap_single"], ids=["batch-minor", "vmap"]
+)
+@pytest.mark.parametrize(
+    "nx,nu,horizon",
+    [(10, 3, 8), (12, 4, 6), (24, 24, 4)],
+    ids=["ballbot-widths", "quadrotor-widths", "legged-widths"],
+)
+def test_batched_paths_match_dense_kkt(path, nx, nu, horizon):
+    """Both batched paths the vmap rule chooses between, at the widths of
+    the batched solves, against the float64 dense KKT solve per scenario
+    (regularization folded into Quu, as the Riccati recursion applies it)."""
+    batch = 4
+    keys = jax.random.split(jax.random.PRNGKey(nx + horizon), batch)
+    coeffs = jax.vmap(lambda k: random_lq_coeffs(k, horizon, nx, nu))(keys)
+    regs = jnp.asarray([0.0, 1e-6, 1e-2, 1.0])
+    fn = {
+        "batch_minor": riccati._lqr_backward_batched,
+        "vmap_single": jax.vmap(riccati._lqr_backward_single),
+    }[path]
+    sols = jax.jit(fn)(coeffs, regs)
+    dx0s = jax.random.normal(jax.random.PRNGKey(5), (batch, nx))
+    for i in range(batch):
+        one = jax.tree.map(lambda x: x[i], coeffs)
+        sol = jax.tree.map(lambda x: x[i], sols)
+        dxs, dus = lqr_forward(one, sol, dx0s[i])
+        dense = solve_lq_dense(
+            one._replace(Quu=one.Quu + regs[i] * jnp.eye(nu)), dx0s[i]
+        )
+        np.testing.assert_allclose(dxs, dense.dxs, atol=2e-3, err_msg=path)
+        np.testing.assert_allclose(dus, dense.dus, atol=2e-3, err_msg=path)

@@ -11,7 +11,7 @@ Validates the two mesh axes the framework shards over:
 
 Reference analogue: PIPG fanned over the ThreadPool
 (ocs2_slp/src/pipg/PipgSolver.cpp:49-231) with per-thread stage ranges —
-here the "threads" are mesh devices and the shared-memory reads are ICI
+here the "threads" are mesh devices and the shared-memory reads are device
 collectives.
 """
 import jax
